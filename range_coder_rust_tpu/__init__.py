@@ -1,11 +1,11 @@
-"""range_coder_rust_tpu — a TPU-native lossless entropy-coding framework.
+"""range_coder_rust_tpu — a GPU lossless entropy-coding framework.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the Rust crate
 ``diegodox/range_coder_rust``: a carryless, 64-bit, model-agnostic range
 coder (reference README.md:4-6).  The reference's 5-name public surface
 (``RangeCoder``, ``Encoder``, ``Decoder``, ``PModel``, ``error`` —
 reference src/lib.rs:1-13) is reproduced here as the scalar streaming API,
-and the framework adds the TPU-native data plane on top:
+and the framework adds the device data plane on top:
 
 * :mod:`~range_coder_rust_tpu.ops` — u32-limb u64 arithmetic, the
   closed-form per-symbol transition (clz-based renormalization), exact

@@ -30,8 +30,8 @@ def _cmd_encode(args) -> int:
     if args.adaptive:
         print(
             "warning: --adaptive is the planar per-block-table CONFORMANCE "
-            "mode (~0.004 GB/s); for fast adaptive coding use "
-            "--per-group-tables (the adaptive rans16 mode, ~1 GB/s)",
+            "mode (slow: O(L*A) work per step); for fast adaptive coding "
+            "use --per-group-tables (the adaptive rans16 mode)",
             file=sys.stderr)
         from .adaptive import encode_adaptive
 
@@ -182,7 +182,7 @@ def main(argv=None) -> int:
                     help="symbols per block/lane (default: per-profile)")
     pe.add_argument("--profile", choices=["rans16", "planar"],
                     default=None,
-                    help="rans16 = TPU-fast interleaved rANS (default when "
+                    help="rans16 = fast interleaved rANS (default when "
                          "k == 16); planar = byte-exact reference-semantics "
                          "streams (default for k < 16)")
     pe.add_argument("--raw-total", action="store_true",

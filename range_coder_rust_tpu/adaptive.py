@@ -21,11 +21,10 @@ geometry only — choosing between modes is the caller's call.
 
 **Status (round 4): CONFORMANCE-ONLY.**  This planar path demonstrates
 per-block tables under the byte-exact planar coder, but its decode sweep
-is O(L*A) masked work per scan step (~0.004 GB/s measured) — it is a
-correctness/conformance artifact, not a throughput path.  The PRODUCT
-adaptive mode is rans16 ``CodecConfig(per_group_tables=True)``
-(rans_codec.py): per-group tables at full tiled-kernel speed, benchmarked
-in ADAPTIVE_r04.json.
+is O(L*A) masked work per scan step — it is a correctness/conformance
+artifact, not a throughput path.  The PRODUCT adaptive mode is rans16
+``CodecConfig(per_group_tables=True)`` (rans_codec.py): per-group tables
+at full kernel speed (scripts/adaptive_bench.py).
 """
 
 from __future__ import annotations

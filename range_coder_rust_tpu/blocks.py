@@ -2,20 +2,17 @@
 
 The reference processes one stream sequentially — every emitted byte depends
 on all prior symbols through ``(lower, range)`` (reference src/encoder.rs:24-37,
-SURVEY.md §2).  The TPU-native answer is block parallelism: the input is
+SURVEY.md §2).  The device answer is block parallelism: the input is
 chunked into ``B`` independent blocks, each with its own coder state living
 in one vector lane; a single ``lax.scan`` over symbol positions advances all
 ``B`` coders per step with the closed-form transition (ops/transition.py).
-No data-dependent control flow, no dynamic shapes, and **no gathers or
-scatters** — XLA's TPU gather costs ~35 ms per op on this stack, so every
-data-dependent access is reformulated (ops/lookup.py):
+No data-dependent control flow and no dynamic shapes; data-dependent
+accesses are reformulated (ops/lookup.py):
 
 * table lookups: packed select-accumulate chain (encode) / masked-reduction
   sweep (decode);
-* byte-stream compaction: a batched one-hot contraction on the MXU — each
-  emission's byte planes land at its start position via
-  ``OH[b, j, i] = (pos[b, i] == j)`` matmul, then 8 static shifted adds
-  (see :func:`compact_emissions`);
+* byte-stream compaction: one scatter of every emission's bytes to its
+  start position (see :func:`compact_emissions`);
 * decoder window: the 64-bit window is just bytes ``[cursor-8, cursor)`` of
   the block's stream (reference src/decoder.rs:27-35), re-extracted each
   step by a masked reduction over the code row.
@@ -97,32 +94,6 @@ def encode_scan(
     return ehi, elo, en, pos, lengths
 
 
-#: transition-axis length above which compaction falls back from the MXU
-#: one-hot contraction to run-length expansion (the contraction is
-#: O(capacity * L) per block)
-_MATMUL_COMPACT_MAX_L1 = 2049
-
-
-def _compact_emissions_expand(ehi, elo, en, pos, capacity):
-    """Long-block fallback: per-byte source via ``jnp.repeat`` expansion."""
-
-    def compact_row(eh, el, nn, pp):
-        src_hi = jnp.repeat(eh, nn, total_repeat_length=capacity)
-        src_lo = jnp.repeat(el, nn, total_repeat_length=capacity)
-        src_pos = jnp.repeat(pp, nn, total_repeat_length=capacity)
-        bidx = jnp.arange(capacity, dtype=jnp.int32) - src_pos
-        sh_hi = (24 - 8 * jnp.clip(bidx, 0, 3)).astype(_U32)
-        sh_lo = (24 - 8 * jnp.clip(bidx - 4, 0, 3)).astype(_U32)
-        val = jnp.where(
-            bidx < 4,
-            (src_hi >> sh_hi) & _U32(0xFF),
-            jnp.where(bidx < 8, (src_lo >> sh_lo) & _U32(0xFF), _U32(0)),
-        )
-        return val.astype(_U8)
-
-    return jax.vmap(compact_row)(ehi, elo, en, pos)
-
-
 @functools.partial(jax.jit, static_argnames="capacity")
 def compact_emissions(
     ehi: jax.Array,
@@ -132,53 +103,26 @@ def compact_emissions(
     *,
     capacity: int,
 ) -> jax.Array:
-    """Stage 2: materialize byte streams — scatter as an MXU one-hot matmul.
+    """Stage 2: materialize byte streams with one scatter.
 
     The emissions partition each block's output: transition ``i`` covers
     bytes ``[pos[i], pos[i] + en[i])``, and bytes past 8 within an emission
     are zero (ops/transition.py: the emission is the top ``n`` bytes of the
-    64-bit lower bound, zero-padded).  So with byte planes
-
-        planes[b, q, r] = byte ``r`` of the transition starting at ``q``
-                          (0 if no transition starts at ``q`` or ``r >= en``)
-
-    the stream is ``out[b, j] = sum_r planes[b, j - r, r]`` — exactly one
-    term is nonzero.  ``planes`` is a batched one-hot contraction
-    ``OH[b, j, i] = (pos[b, i] == j)`` against the masked byte planes,
-    which XLA fuses into an MXU matmul (measured ~19 ms for 8 M symbols —
-    70x faster than ``jnp.repeat``-based expansion, which lowers through
-    sort + serial fusions; gathers/scatters are similarly slow on TPU).
-    Exact: one-hot and bytes 0..255 are exact in bfloat16, and each output
-    accumulates a single nonzero product in float32.
-
-    The contraction is O(capacity * L) per block — ideal for the flagship
-    short-block geometry (block_len <= ~2048, where it is 70x faster than
-    expansion), quadratic for long blocks, so those fall back to the
-    ``jnp.repeat`` run-length expansion.
+    64-bit lower bound, zero-padded).  So byte ``r < min(en[i], 8)`` of
+    transition ``i`` goes to ``pos[i] + r`` — distinct targets, so the
+    scatter is deterministic; everything else (and anything past
+    ``capacity``) is dropped, leaving zeros.
     """
     B, L1 = en.shape
-    if L1 > _MATMUL_COMPACT_MAX_L1:
-        return _compact_emissions_expand(ehi, elo, en, pos, capacity)
     r = jnp.arange(8, dtype=jnp.int32)
     sh = (24 - 8 * (r & 3)).astype(_U32)  # big-endian byte r of each word
-    word = jnp.where(r[None, None, :] < 4, ehi[..., None], elo[..., None])
-    byte = (word >> sh[None, None, :]) & _U32(0xFF)
-    v = jnp.where(r[None, None, :] < en[..., None], byte, _U32(0))
-    v = v.astype(jnp.bfloat16)  # (B, L1, 8), values 0..255 exact
-
-    j = jnp.arange(capacity, dtype=jnp.int32)
-    oh = (pos[:, None, :] == j[None, :, None]).astype(jnp.bfloat16)
-    planes = jax.lax.dot_general(
-        oh,
-        v,
-        dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    ).astype(jnp.int32)  # (B, capacity, 8)
-
-    out = planes[:, :, 0]
-    for rr in range(1, 8):
-        out = out + jnp.pad(planes[:, : capacity - rr, rr], ((0, 0), (rr, 0)))
-    return out.astype(_U8)
+    word = jnp.where(r < 4, ehi[..., None], elo[..., None])
+    byte = ((word >> sh) & _U32(0xFF)).astype(_U8)        # (B, L1, 8)
+    dst = jnp.where(r < en[..., None], pos[..., None] + r, capacity)
+    rows = jnp.broadcast_to(jnp.arange(B, dtype=jnp.int32)[:, None, None],
+                            dst.shape)
+    return jnp.zeros((B, capacity), _U8).at[rows, dst].set(
+        byte, mode="drop")
 
 
 def encode_blocks(

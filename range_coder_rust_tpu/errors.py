@@ -1,4 +1,4 @@
-"""Typed error hierarchy for the TPU range-coding framework.
+"""Typed error hierarchy for the range-coding framework.
 
 The reference exposes exactly two overflow variants
 (``RangeCoderError::{LowerBoundOverflow, UpperBoundOverflow}``,

@@ -1,26 +1,16 @@
-"""Pallas TPU kernels for the rans16 profile.
+"""Pallas kernels for the rans16 profile (Triton route).
 
-The planar profile (blocks.py) stores one byte stream per block — ideal
-for XLA's scan machinery, but a fast in-kernel decoder needs per-lane
-reads at data-dependent offsets, which TPU vector units can only do
-within one (8, 128) vreg (Mosaic's 2-D dynamic gathers).  The **rans16
-profile** solves this: GROUP_LANES lanes (2048 by default) share one group stream laid out in
-*decode consumption order* (the rANS encoder runs backward, so it writes
-that order directly — rans.py), and every decode step reads one
-contiguous, uniformly-advancing window that fits the vreg-gather reach.
+The rans16 profile (rans.py) interleaves ``G`` lanes per group into one
+halfword stream in decode order, so each direction is one serial loop over
+steps with every lane of the group advancing together.  Each kernel runs
+one program per group: the group's lanes are the block vector, the state
+stays in registers, and the emitting/refilling lanes find their stream
+positions by a prefix sum over the block.
 
-Modules: vreg.py (shared (R,128) vreg primitives), compact_flat.py (in-kernel
-stream compaction), rans_encode.py / rans_decode.py (the tiled kernels).
+Modules: backend.py (the one place that picks compiled vs interpret
+mode), rans_encode.py / rans_decode.py (the kernels).
 """
 
-from .rans_decode import rans_decode_tiled
-from .rans_encode import rans_encode_tiled, tile_steps_for
-from .vreg import prep_cum_vreg, symbols_to_step_major
+from .backend import interpret_kernels
 
-__all__ = [
-    "tile_steps_for",
-    "prep_cum_vreg",
-    "rans_decode_tiled",
-    "rans_encode_tiled",
-    "symbols_to_step_major",
-]
+__all__ = ["interpret_kernels"]

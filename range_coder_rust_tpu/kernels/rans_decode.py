@@ -1,50 +1,20 @@
-"""Pallas TPU decode kernel for the rans16 profile (rans.py).
+"""rans16 decode kernel (Pallas, Triton route).
 
-Per step, for all GROUP_LANES lanes of a group at once
-(width-generic — sr = lanes/128 sublane-rows of state per step):
+One program per group, the ``G`` lanes as the block vector, the state in
+registers and the ``L`` steps as a loop inside the program — the mirror of
+kernels/rans_encode.py.  Per step, for every lane at once:
 
-  1. ``slot = x & 0xFFFF`` — one mask; the rans16 decoder needs **no
-     division** (unlike the range decoder's ``(data - lower) / rpt``);
-  2. symbol search: largest s with ``cum[s] <= slot`` — binary search with
-     per-lane vreg gathers on the (8, 128) cum table;
-  3. state update ``x = c * (x >> 16) + slot - cum`` — one 32x32 wide
-     multiply (``x < 2^48`` so ``x >> 16`` fits u32);
-  4. refill: lanes with ``x < 2^32`` shift in one halfword each.  Refilling
-     lanes' halfwords are consecutive in the stream (rans.py layout), so a
-     boolean lane prefix-sum (two MXU contractions) gives each lane's
-     offset, and the fetch is a gather within a _win_rows(sr)-row window.
+  1. ``slot = x & 0xFFFF``;
+  2. the symbol: largest ``s`` with ``cum[s] <= slot``, by a binary
+     search over the group's cum table (measured faster on an H100 than
+     one gather from a 2^16-entry slot -> symbol table);
+  3. ``x = c * (x >> 16) + slot - cum`` (no division);
+  4. lanes with ``x < 2^32`` refill one halfword each.  The refilling
+     lanes' halfwords are consecutive in the group's region section, in
+     lane order (rans.py layout), so a lane's halfword sits at the
+     stream cursor plus its exclusive rank among the refilling lanes.
 
-## Tile-local streams (round 3)
-
-The container records each 64-step tile's region size (format.py v2 /
-kernels/rans_encode.py), so the host can hand the kernel a PADDED
-per-tile window layout — grid (group-blocks, tiles), each tile's stream
-rows in its own input block, the region starting at a per-tile halfword
-offset (SMEM).  Lane states thread across tiles through VMEM scratch;
-tile 0 primes them from the 8-byte-per-lane preamble words (a separate
-tiny input).  This replaces round 2's whole-stream-in-VMEM block (which
-capped lane length at a few MB of VMEM) and its host-chained segment
-calls.
-
-## Interleaved group chains (round 5)
-
-The per-step chain is LATENCY-bound: the round-4 ablations measured ~900
-dependent cycles per step at G=2048 (search probe gathers -> state
-multiply -> MXU refill prefix -> refill window gather), against maybe a
-fifth of that in issue slots — and the search-shape sweep concluded the
-structure is at a local optimum (docs/hardware_runs.md).  The round-5
-lever attacks the latency itself: one grid step now processes a BLOCK of
-``chains`` groups, whose state chains are fully independent, and the
-step loop advances all of them in one body.  Mosaic schedules by
-dataflow, so chain B's gathers issue while chain A's are in flight —
-C-way interleaving converts the latency-bound loop toward issue-bound
-without touching the container format (groups are already independent
-streams).  VMEM cost is C of everything blockwise; the host picks C
-(rans_codec._pick_chains) from the group count and VMEM budget.
-
-Stream words are little-endian u32 (two halfwords per word).  The kernel
-is pure (8, 128)-shaped jnp: identical under ``interpret=True`` (CPU
-tests) and Mosaic-compiled on hardware.
+The state ``x`` lives in ``[2^32, 2^48)`` as two u32 limbs (``hi``, ``lo``).
 """
 
 from __future__ import annotations
@@ -55,413 +25,106 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from ..ops import u64 as u64ops
-from .vreg import (
-    _bcast_rows, _lane_prefix_flat, _lane_prefix_flat_hybrid,
-    _lane_prefix_flat_vpu, _lookup_rows)
+from .backend import PALLAS_BACKEND
+from .rans_encode import TABLE_SIZE, num_warps
 
 _U32 = jnp.uint32
 _I32 = jnp.int32
 
-def _win_rows(sr: int) -> int:
-    """Window rows fetched per refill: a step consumes <= sr*128 halfwords
-    (sr/2 rows + within-row offset); the next multiple of 8 with a spare
-    row covers any start offset."""
-    return max(8, ((sr // 2 + 1 + 7) // 8) * 8)
+def cum_rows(c) -> np.ndarray:
+    """(A,) or (T, A) counts -> (T, TABLE_SIZE) u32 exclusive cum tables,
+    padded with 2^16 (above every slot)."""
+    c2 = np.atleast_2d(np.asarray(c, np.int64))
+    T, a = c2.shape
+    if a > TABLE_SIZE - 1:
+        raise ValueError(f"alphabet {a} exceeds {TABLE_SIZE - 1} symbols")
+    out = np.full((T, TABLE_SIZE), 1 << 16, np.uint32)
+    out[:, :a] = np.cumsum(c2, axis=1) - c2
+    return out
 
 
-def _rans_decode_kernel(probe_ref, starts_ref, cum_ref, aux_ref, pre_ref,
-                        stream_ref, out_ref, st_ref, *, a_count: int,
-                        tile_steps: int, sr: int = 8, chains: int = 1,
-                        ablate: str = "none"):
-    """One (group-block, step-tile), tiles in time order; a block holds
-    ``chains`` groups advanced in lock-step (independent chains — see
-    module docstring).  probe_ref SMEM (NG, 5) u32 = cum values at the
-    two data-independent early probe positions plus j0 (see
-    rans_decode_tiled); starts_ref SMEM (NG, NT) i32 = each tile's region
-    start offset (halfwords) within its stream block; cum_ref
-    (chains, 8, 128) u32 (prep_cum_vreg); pre_ref (chains, 2*sr, 128) u32
-    preamble words (lane l's state = LE words 2l lo / 2l+1 hi);
-    stream_ref (chains, 1, rows_pad, 128) u32 LE words — THIS tile's
-    region rows per chain; out_ref (chains, 1, tile_steps*sr, 128) i32;
-    st_ref VMEM scratch (chains, 2, sr, 128) u32 state limbs carried
-    across tiles."""
-    tau = pl.program_id(1)
-    gb = pl.program_id(0)
-    # gathers dominate the step.  For a_count <= 256 ("packed" path) the
-    # search probes ONE broadcast row of halfword-packed ``cum[j+1]-1``
-    # values (1 gather/probe) and the final cum/c lookup reads a single
-    # per-symbol word ``cum[s] | (c[s]-1) << 16`` from two rows; the
-    # generic path gathers the plain cum table (2 gathers + select/probe).
-    packed = a_count <= 256
-    search_iters = max(1, (a_count - 1).bit_length())
-
-    tabs = []
-    for j in range(chains):
-        if packed:
-            tabs.append((_bcast_rows(aux_ref[j, 0:1, :]),
-                         _bcast_rows(aux_ref[j, 1:3, :])))
-        else:
-            n_rows = 1
-            while n_rows * 128 < a_count + 2 and n_rows < 8:
-                n_rows *= 2
-            tabs.append((_bcast_rows(cum_ref[j])[:n_rows],))
-
-    @pl.when(tau == 0)
-    def _():
-        # prime: lane l's state = LE words 2l (lo) and 2l+1 (hi)
-        lane = (
-            jax.lax.broadcasted_iota(_I32, (sr, 128), 0) * 128
-            + jax.lax.broadcasted_iota(_I32, (sr, 128), 1)
-        )
-        for j in range(chains):
-            pre_rows = _bcast_rows(pre_ref[j])
-            st_ref[j, 1] = _lookup_rows(pre_rows, lane * 2)      # x.lo
-            st_ref[j, 0] = _lookup_rows(pre_rows, lane * 2 + 1)  # x.hi
-
-    def step(j, xhi, xlo, ch):
-        """Advance chain ``j`` one step; returns (xhi', xlo', ch', idx)."""
-        g_idx = gb * chains + j
-        if packed:
-            srow, w2_rows = tabs[j]
-        else:
-            (cum_rows,) = tabs[j]
-
-        # 1-2. slot + symbol search (largest s with cum[s] <= slot).
-        # PACKED PATH (a_count <= 256), latency-oriented: the step is
-        # bound by the SEQUENTIAL probe chain (measured ~6 ms/probe at
-        # 64 MB), so after two data-independent scalar probes and two
-        # gather probes (interval width 16) the remaining FOUR levels
-        # collapse into ONE parallel round: 9 independent word-gathers
-        # fetch c1[m] = cum[m+1]-1 for every m the interval can touch,
-        # the symbol is counted directly (idx = lo + #{m in [lo, lo+15):
-        # slot > c1[m]}, exact by monotonicity of c1), and cum/c come
-        # from the same fetched words — no separate per-symbol lookup.
-        slot = xlo & _U32(0xFFFF)
-        lo = jnp.zeros((sr, 128), _I32)
-        hi = jnp.full((sr, 128), a_count, _I32)
-        it = 0
-        if ablate == "nosearch":
-            # perf forensics: skip the whole symbol search + cum/c lookup
-            # (outputs garbage; constants keep the state chain shaped)
-            idx = (slot & _U32(a_count - 1 if a_count & (a_count - 1) == 0
-                               else 127)).astype(_I32)
-            cum_s = jnp.full((sr, 128), 1000, _U32)
-            cc = jnp.full((sr, 128), 300, _U32)
-        elif ablate == "noprobes" and packed and search_iters == 8:
-            # skip the two scalar + two gather probe levels; fake lo from
-            # slot bits (garbage interval, same parallel-round cost)
-            lo = (slot >> _U32(12)).astype(_I32) * _I32(16)
-            hi = lo + 16
-            it = 99  # mark: go straight to the parallel round
-        elif search_iters >= 2:
-            m1 = a_count >> 1
-            go = probe_ref[g_idx, 0] <= slot
-            lo = jnp.where(go, m1, lo)
-            hi = jnp.where(go, hi, m1)
-            c2 = jnp.where(go, probe_ref[g_idx, 2], probe_ref[g_idx, 1])
-            mid = (lo + hi) >> 1
-            go = c2 <= slot
-            lo = jnp.where(go, mid, lo)
-            hi = jnp.where(go, hi, mid)
-            it = 2
-        if ablate == "nosearch":
-            pass  # idx/cum_s/cc already set above
-        elif packed and search_iters == 8:
-            probe_levels = {"noprobes": 0, "probes1": 1}.get(ablate, 2)
-            for _ in range(probe_levels):  # dependent probe levels
-                mid = (lo + hi) >> 1
-                jm = jnp.maximum(mid - 1, 0)
-                word = _lookup_rows(srow, jm >> 1)
-                v = jnp.where((jm & 1) == 1, word >> _U32(16), word)
-                go = (slot > (v & _U32(0xFFFF))) | (mid == 0)
-                lo = jnp.where(go, mid, lo)
-                hi = jnp.where(go, hi, mid)
-            # final parallel round over m in [lo, lo+W-1): the interval
-            # width after 2 scalar + probe_levels gather levels is W =
-            # repeated CEIL-halving of a_count (the search splits at
-            # (lo+hi)>>1, so the surviving side is ceil(w/2) — floor
-            # underestimates for non-pow2 alphabets: 129 -> 9, not 8);
-            # W/2 + 2 words cover the count window AND the c1[idx-1..idx]
-            # extraction (with lo odd, idx = lo+W-1 lands in word
-            # base_w + W/2)
-            width = a_count
-            for _ in range(2 + probe_levels):
-                width = (width + 1) // 2
-            width = max(width, 4)
-            n_words = width // 2 + 2
-            base_w = lo >> 1
-            words = [
-                _lookup_rows(srow, jnp.maximum(base_w + k - 1, 0))
-                for k in range(n_words)
-            ]  # independent gathers: k-1 in [-1, n_words-1)
-            cnt = jnp.zeros((sr, 128), _I32)
-            for k in range(n_words):
-                wk = words[k]
-                m0 = ((base_w + k - 1) << 1)
-                for par, c1v in ((0, wk & _U32(0xFFFF)),
-                                 (1, wk >> _U32(16))):
-                    m = m0 + par
-                    ok = jnp.logical_and(
-                        jnp.logical_and(m >= lo, m < lo + width - 1),
-                        slot > c1v)
-                    cnt = cnt + ok.astype(_I32)
-            idx0 = lo + cnt
-            # zero-frequency repair: slot == 0 with leading absent
-            # symbols misroutes under the saturated probe
-            # (aux_from_cum_flat); true symbol index >= j0 = probe_ref[3].
-            # Repair fires ONLY for slot == 0 (for slot >= 1 the saturated
-            # probes agree with the exact ones), and may land OUTSIDE the
-            # fetched word window — cum/c for that case come from the
-            # dedicated probes (cum[j0] = 0, c[j0] = cum[j0+1] =
-            # probe_ref[4]), not the window.
-            j0 = probe_ref[g_idx, 3].astype(_I32)
-            repaired = idx0 < j0
-            idx = jnp.maximum(idx0, j0)
-            # cum[idx] = c1[idx-1]+1 (0 when idx <= j0, where cum==0);
-            # cum[idx+1] = c1[idx]+1 (always >= 1, so exact): both words
-            # are among the 9 fetched — select by (idx>>1) - base_w + 1
-            sel = (idx >> 1) - base_w + 1  # in [1, n_words-1]
-            wsel = words[n_words - 1]
-            for k in range(n_words - 2, 0, -1):
-                wsel = jnp.where(sel == k, words[k], wsel)
-            c1_even = wsel & _U32(0xFFFF)
-            c1_odd = wsel >> _U32(16)
-            odd = (idx & 1) == 1
-            # c1[idx-1]: same word's low half when idx is odd; the high
-            # half of the word BELOW when idx is even (idx == 0 never
-            # reads it — covered by the idx <= j0 rule)
-            wsel_m = words[0]
-            for k in range(n_words - 1, 0, -1):
-                wsel_m = jnp.where(sel == k, words[k - 1], wsel_m)
-            c1_im1 = jnp.where(odd, c1_even, wsel_m >> _U32(16))
-            c1_i = jnp.where(odd, c1_odd, c1_even)     # c1[idx]
-            cum_s = jnp.where(idx <= j0, _U32(0), c1_im1 + _U32(1))
-            cc = (c1_i + _U32(1)) - cum_s
-            cc = jnp.where(repaired, probe_ref[g_idx, 4], cc)
-        else:
-            for _ in range(it, search_iters):
-                mid = (lo + hi) >> 1
-                if packed:
-                    # cum[mid] <= slot <=> slot > cum[mid]-1 (packed j)
-                    jm = jnp.maximum(mid - 1, 0)
-                    word = _lookup_rows(srow, jm >> 1)
-                    v = jnp.where((jm & 1) == 1, word >> _U32(16), word)
-                    go = (slot > (v & _U32(0xFFFF))) | (mid == 0)
-                else:
-                    go = _lookup_rows(cum_rows, mid) <= slot
-                lo = jnp.where(go, mid, lo)
-                hi = jnp.where(go, hi, mid)
-            idx = lo
-            if packed:
-                idx = jnp.maximum(idx, probe_ref[g_idx, 3].astype(_I32))
-                w2 = _lookup_rows(w2_rows, idx)
-                cum_s = w2 & _U32(0xFFFF)
-                cc = (w2 >> _U32(16)) + _U32(1)
-            else:
-                cum_s = _lookup_rows(cum_rows, idx)
-                cc = _lookup_rows(cum_rows, idx + 1) - cum_s
-
-        # 3. x = c * (x >> 16) + (slot - cum)  (x < 2^48 => x>>16 fits u32)
-        q = (xlo >> _U32(16)) | (xhi << _U32(16))
-        phi, plo = u64ops.mul32_wide(q, cc)
-        d = slot - cum_s  # < 2^16
-        nlo = plo + d
-        nhi = phi + (nlo < plo).astype(_U32)
-
-        # 4. refill lanes with x < 2^32, one halfword each, lane-ordered
-        cond = nhi == 0
-        if ablate == "noprefix":
-            # perf forensics: constant rank/advance instead of the MXU
-            # lane prefix (stream consumption is garbage)
-            rank = jnp.zeros((sr, 128), _I32)
-            s_t = jnp.int32(512)
-        elif ablate == "vpuprefix":
-            # measured WORSE (78 vs 51 ms at 64 MB): Mosaic lane rolls are
-            # full shuffles, each ~a gather's latency — 7 dependent rounds
-            # lose to the 2 MXU contractions.  Kept for the record.
-            rank, s_t = _lane_prefix_flat_vpu(cond.astype(_I32))
-        elif ablate == "hprefix":
-            # one MXU contraction + sublane-roll row prefix: measured a
-            # wash vs the two-contraction form (31.3 vs 30.9 ms at 64 MB,
-            # G=2048) — the second contraction's latency overlaps fine
-            rank, s_t = _lane_prefix_flat_hybrid(cond.astype(_I32))
-        else:
-            rank, s_t = _lane_prefix_flat(cond.astype(_I32))
-        if ablate == "norefill":
-            # perf forensics: skip the window gather entirely
-            h = (rank.astype(_U32) + _U32(0x123)) & _U32(0xFFFF)
-        else:
-            lh = ch + rank  # block-local halfword index per lane
-            row = ch >> 8  # 256 halfwords per 128-word row
-            win = stream_ref[j, 0, pl.ds(row, _win_rows(sr)), :]
-            wrows = _bcast_rows(win)
-            lw = (lh >> 1) - row * 128  # window-local word index
-            word = _lookup_rows(wrows, lw)
-            h = jnp.where(
-                (lh & 1) == 1, word >> _U32(16), word) & _U32(0xFFFF)
-
-        rhi = (nhi << _U32(16)) | (nlo >> _U32(16))
-        rlo = (nlo << _U32(16)) | h
-        xhi2 = jnp.where(cond, rhi, nhi)
-        xlo2 = jnp.where(cond, rlo, nlo)
-        return xhi2, xlo2, ch + s_t.astype(_I32), idx
+def _decode_kernel(stream_ref, off_ref, hi_ref, lo_ref, cum_ref, out_ref,
+                   *, n_steps, lanes, per_group, search_iters, stream_len):
+    g = pl.program_id(0)
+    tab = g * TABLE_SIZE if per_group else 0
 
     def body(t, carry):
-        new = []
-        for j in range(chains):
-            xhi, xlo, ch = carry[3 * j : 3 * j + 3]
-            xhi2, xlo2, ch2, idx = step(j, xhi, xlo, ch)
-            out_ref[j, 0, pl.ds(t * sr, sr), :] = idx
-            new.extend((xhi2, xlo2, ch2))
-        return tuple(new)
+        xhi, xlo, base = carry
+        slot = xlo & _U32(0xFFFF)
+        # binary search over [0, 2^search_iters) — entries past the
+        # alphabet hold 2^16, above every slot
+        lo = jnp.zeros((lanes,), _I32)
+        hi = jnp.full((lanes,), 1 << search_iters, _I32)
+        for _ in range(search_iters):
+            mid = (lo + hi) >> 1
+            go = cum_ref[tab + mid] <= slot
+            lo = jnp.where(go, mid, lo)
+            hi = jnp.where(go, hi, mid)
+        s = lo
+        cum = cum_ref[tab + s]
+        c = cum_ref[tab + s + 1] - cum
 
-    init = []
-    for j in range(chains):
-        init.extend((st_ref[j, 0], st_ref[j, 1],
-                     starts_ref[gb * chains + j, tau]))
-    fin = jax.lax.fori_loop(0, tile_steps, body, tuple(init))
-    for j in range(chains):
-        st_ref[j, 0] = fin[3 * j]
-        st_ref[j, 1] = fin[3 * j + 1]
+        # x = c * (x >> 16) + (slot - cum), c <= 2^16: two 16x32 products
+        q = (xlo >> _U32(16)) | (xhi << _U32(16))
+        p_lo = c * (q & _U32(0xFFFF))
+        p_hi = c * (q >> _U32(16))
+        nlo = (p_hi << _U32(16)) + p_lo
+        nhi = (p_hi >> _U32(16)) + (nlo < p_lo).astype(_U32)
+        d = nlo + (slot - cum)
+        nhi = nhi + (d < nlo).astype(_U32)
+
+        refill = nhi == 0
+        r = refill.astype(_I32)
+        idx = jnp.minimum(base + jnp.cumsum(r) - r, stream_len - 1)
+        h = stream_ref[idx].astype(_U32)
+        xhi = jnp.where(refill, d >> _U32(16), nhi)
+        xlo = jnp.where(refill, (d << _U32(16)) | h, d)
+        out_ref[pl.ds((g * n_steps + t) * lanes, lanes)] = s.astype(
+            out_ref.dtype)
+        return xhi, xlo, base + jnp.sum(r)
+
+    jax.lax.fori_loop(
+        0, n_steps, body,
+        (hi_ref[pl.ds(g * lanes, lanes)], lo_ref[pl.ds(g * lanes, lanes)],
+         off_ref[g]))
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("block_len", "a_count", "interpret", "ablate",
-                     "chains"),
-)
-def rans_decode_tiled(
-    stream: jax.Array,
-    starts: jax.Array,
-    pre: jax.Array,
-    cum_vreg: jax.Array,
-    *,
-    block_len: int,
-    a_count: int,
-    interpret: bool = False,
-    ablate: str = "none",
-    chains: int = 1,
-):
-    """Decode padded per-tile stream windows -> (NG, G, L) symbols.
+    static_argnames=("n_steps", "a_count", "out_dtype", "interpret"))
+def rans_decode(stream, offsets, hi, lo, cum, *, n_steps: int, a_count: int,
+                out_dtype, interpret: bool):
+    """Decode every group's region section back to step-major symbols.
 
     Arguments:
-      stream: (NG, NT, rows_pad, 128) u32 LE words — tile (g, t)'s region
-        rows in TIME order, with at least _win_rows(sr) tail slack rows
-        (content ignored); the region starts at halfword ``starts[g, t]``
-        of the block and its size is implied by the coder (the container's
-        per-tile sizes produce this layout — rans_codec).
-      starts: (NG, NT) int32 halfword offsets.
-      pre: (NG, 16, 128) u32 preamble words (rans_encode layout).
-      cum_vreg: (8, 128) uint32 (prep_cum_vreg), or (NG, 8, 128) for
-        per-group tables (adaptive rans16).
-      chains: groups interleaved per grid step (must divide NG) — C
-        independent state chains in one loop body hide the latency-bound
-        per-step chain behind each other (see module docstring); the
-        host picks C from NG and the VMEM budget
-        (rans_codec._pick_chains).
+      stream: (S,) uint16 — all groups' region sections, concatenated
+        (S >= 1).
+      offsets: (NG,) int32 — where group g's section starts in ``stream``.
+      hi, lo: (NG, G) uint32 initial lane states.
+      cum: (TABLE_SIZE,) shared or (NG, TABLE_SIZE) per-group cum tables
+        (:func:`cum_rows`).
+      n_steps: steps L to decode.
+      a_count: alphabet size (sets the search depth).
+
+    Returns (NG, L, G) symbols in ``out_dtype``.
     """
-    NG, n_tiles, rows_pad, _ = stream.shape
-    if block_len % n_tiles:
-        raise ValueError(
-            f"block_len {block_len} not divisible by {n_tiles} tiles")
-    if chains < 1 or NG % chains:
-        raise ValueError(f"chains {chains} must divide NG {NG}")
-    tile = block_len // n_tiles  # the encoder's tiling, from the container
-    sr = pre.shape[1] // 2       # group width / 128, from the preamble
+    NG, G = hi.shape
+    if NG * n_steps * G >= 1 << 31:
+        raise ValueError("one decode call is limited to < 2^31 symbols")
     kern = functools.partial(
-        _rans_decode_kernel, a_count=a_count, tile_steps=tile, sr=sr,
-        chains=chains, ablate=ablate,
-    )
-    # cum values at the two data-independent early probe positions, plus
-    # j0 = largest s with cum[s] == 0 (zero-frequency repair, see
-    # aux_from_cum_flat) — per group when tables are per-group
-    if cum_vreg.ndim == 2:  # shared table: broadcast to the group axis
-        cum_vreg = jnp.broadcast_to(cum_vreg, (NG, 8, 128))
-    m1 = a_count >> 1
-    m2a, m2b = m1 >> 1, m1 + ((a_count - m1) >> 1)
-
-    def per_group(cv):
-        flat = cv.reshape(-1)
-        j0 = jnp.sum((flat[1:a_count] == 0).astype(_U32))
-        # probe 4: c[j0] = cum[j0+1] (cum[j0] == 0) — the symbol the
-        # slot == 0 repair decodes, possibly outside the search window
-        cj0 = flat[jnp.minimum(j0 + 1, a_count)]
-        return (jnp.stack([flat[m1], flat[m2a], flat[m2b], j0, cj0]),
-                aux_from_cum_flat(flat, a_count))
-
-    probes, aux = jax.vmap(per_group)(cum_vreg)
+        _decode_kernel, n_steps=n_steps, lanes=G, per_group=cum.ndim == 2,
+        search_iters=max(0, (a_count - 1).bit_length()),
+        stream_len=stream.shape[0])
     out = pl.pallas_call(
         kern,
-        grid=(NG // chains, n_tiles),
-        out_shape=jax.ShapeDtypeStruct((NG, n_tiles, tile * sr, 128), _I32),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # probes (NG, 5)
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # starts (NG, NT)
-            pl.BlockSpec((chains, 8, 128), lambda g, t: (g, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((chains, 8, 128), lambda g, t: (g, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((chains, 2 * sr, 128), lambda g, t: (g, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((chains, 1, rows_pad, 128),
-                         lambda g, t: (g, t, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (chains, 1, tile * sr, 128), lambda g, t: (g, t, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((chains, 2, sr, 128), _U32),
-        ],
+        out_shape=jax.ShapeDtypeStruct((NG * n_steps * G,), out_dtype),
+        grid=(NG,),
+        compiler_params=plt.CompilerParams(num_warps=num_warps(G),
+                                           num_stages=1),
+        backend=PALLAS_BACKEND,
         interpret=interpret,
-    )(probes, starts, cum_vreg, aux, pre, stream)
-    out = out.reshape(NG, block_len, sr, 128)
-    sym = jnp.transpose(out, (0, 2, 3, 1)).reshape(NG, sr * 128, block_len)
-    return sym
-
-
-def aux_from_cum_flat(flat: jax.Array, a_count: int) -> jax.Array:
-    """Derive the (8, 128) packed lookup table from the flat cum values
-    (traced, inside jit — costs a handful of 1 KB vector ops once per
-    call).  Row 0: halfword pairs of ``cum[j+1]-1`` (j ascending) for the
-    1-gather-per-probe binary search; rows 1-2: per-symbol words
-    ``cum[s] | (c[s]-1) << 16``.  Only meaningful for a_count <= 256.
-
-    Zero-frequency symbols: ``cum[j+1] == 0`` (leading absent symbols)
-    would underflow the packed ``cum[j+1]-1`` probe, so it saturates at 0.
-    The saturated probe answers ``slot >= 1`` instead of the correct
-    always-true, which only misroutes ``slot == 0`` — the kernel repairs
-    that one case with ``idx = max(idx, j0)`` where ``j0`` (probe_ref[3])
-    is the largest s with ``cum[s] == 0`` (correct because the true symbol
-    for any slot always has index >= j0).  The ``(c-1) << 16`` underflow
-    for interior zero-frequency symbols is masked to 16 bits so it can
-    never corrupt the paired halfword; those w2 entries are never read
-    (the search never returns a zero-width interior symbol)."""
-    a = min(a_count, 256)
-    nxt = flat[1 : a + 1]
-    # pad beyond the alphabet with 0xFFFF so ``slot > c1[m]`` is false for
-    # out-of-range m (the parallel count round sweeps a fixed 15-value
-    # window that can extend past a-1); in-range zero-freq cum saturates
-    # at 0 (see above)
-    c1 = jnp.full(256, 0xFFFF, _U32)
-    c1 = c1.at[:a].set(jnp.where(nxt == 0, _U32(0), nxt - _U32(1)) & _U32(0xFFFF))
-    srow = c1[0::2] | (c1[1::2] << _U32(16))  # (128,)
-    w2 = jnp.zeros(256, _U32)
-    w2 = w2.at[:a].set(
-        flat[:a] | (((nxt - flat[:a] - _U32(1)) & _U32(0xFFFF)) << _U32(16))
-    )
-    return jnp.concatenate(
-        [srow.reshape(1, 128), w2.reshape(2, 128),
-         jnp.zeros((5, 128), _U32)], axis=0)
-
-
-def stream_bytes_to_words(stream: bytes, rows: int) -> np.ndarray:
-    """Host helper: one group's stream bytes -> (rows, 128) LE u32 words
-    (zero-padded to ``rows * 512`` bytes)."""
-    buf = np.zeros(rows * 512, np.uint8)
-    buf[: len(stream)] = np.frombuffer(stream, np.uint8)
-    return buf.view("<u4").reshape(rows, 128).astype(np.uint32)
+        name="rans16_decode",
+    )(stream, offsets, hi.reshape(-1), lo.reshape(-1), cum.reshape(-1))
+    return out.reshape(NG, n_steps, G)

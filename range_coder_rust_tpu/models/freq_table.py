@@ -41,7 +41,7 @@ class FreqTable(PModel):
 
     def add_counts(self, data: Iterable[int] | np.ndarray) -> None:
         """Vectorized histogram accumulation (framework extension of
-        ``add_alphabet_freq``; the TPU-native builder lives in models/table.py)."""
+        ``add_alphabet_freq``; the device builder lives in models/table.py)."""
         arr = np.asarray(list(data) if not isinstance(data, np.ndarray) else data)
         self._c += np.bincount(
             arr.astype(np.int64), minlength=self.alphabet_count

@@ -10,7 +10,7 @@ Here the same model is arrays end-to-end:
 * ``find_index``'s binary search (examples/sample_impl.rs:33-44) =
   ``jnp.searchsorted`` (:func:`find_index`) or a direct rfreq->symbol lookup
   table (:func:`decode_lut`) for shared tables;
-* plus the TPU-first addition: :func:`normalize_pow2`, which renormalizes
+* plus the device-first addition: :func:`normalize_pow2`, which renormalizes
   counts to ``total = 2**k`` so the coder's hot division
   (reference src/range_coder.rs:38-40) becomes a shift
   (ops/transition.py:param_update_pow2).  Exact largest-remainder
@@ -72,7 +72,8 @@ def normalize_pow2(counts: jax.Array, k: int) -> jax.Array:
 
     Requires ``2**k >=`` number of present symbols (else no assignment with
     all-nonzero frequencies exists) and ``sum(counts) < 2**31`` (int32 sort
-    keys; TPU has no 64-bit integers — callers with larger corpora prescale,
+    keys; x64 mode is off, so no 64-bit integers — callers with larger
+    corpora prescale,
     see :func:`build_table_pow2`).  Validity is asserted host-side by
     :func:`build_table_pow2`.
     """
@@ -148,7 +149,7 @@ def normalize_pow2_np(counts: np.ndarray, k: int) -> np.ndarray:
     """Host-side NumPy twin of :func:`normalize_pow2` — bit-identical
     output (same largest-remainder apportionment, same tie-breaking), no
     device round trip.  The host entry points use this: a table build must
-    not cost a TPU compile + transfer (the device version exists for the
+    not cost a device compile + transfer (the device version exists for the
     in-graph per-block adaptive path, adaptive.py).
     """
     if not 1 <= k <= 16:

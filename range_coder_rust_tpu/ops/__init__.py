@@ -1,7 +1,7 @@
 """Device-side primitive ops: u32-limb u64 arithmetic and the closed-form
 per-symbol coder transition.
 
-TPU vector units operate on 32-bit lanes; the reference's 64-bit coder state
+JAX's integer types are 32-bit (x64 mode stays off); the reference's 64-bit coder state
 (reference src/range_coder.rs:7-12) is therefore carried as ``(hi, lo)``
 uint32 limb pairs (:mod:`~range_coder_rust_tpu.ops.u64`), and the reference's
 two data-dependent renormalization ``while`` loops (src/range_coder.rs:83-89)

@@ -1,7 +1,6 @@
-"""Gather-free table lookups — XLA-on-TPU's gather is pathologically slow
-(measured ~35 ms fixed cost per gather op on this stack, independent of
-element count), so every per-symbol table access in the device path is
-reformulated as fused vector arithmetic:
+"""Gather-free table lookups for the planar profile: every per-symbol table
+access in its device path is formulated as fused vector arithmetic, which
+XLA fuses into the surrounding scan:
 
 * :func:`packed_lookup` — the encoder's ``(c_freq[s], cum_freq[s])`` pair
   (reference src/pmodel.rs:6-8) as ONE unrolled select-accumulate chain over

@@ -1,4 +1,4 @@
-"""Closed-form per-symbol coder transition (the TPU replacement for the
+"""Closed-form per-symbol coder transition (the vector replacement for the
 reference's renormalization loops).
 
 The reference advances one symbol with ``param_update``

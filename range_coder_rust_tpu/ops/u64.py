@@ -1,6 +1,7 @@
-"""u64 arithmetic as (hi, lo) uint32 limb pairs — the TPU-native word type.
+"""u64 arithmetic as (hi, lo) uint32 limb pairs — the device word type.
 
-TPU VPUs are 32-bit-lane machines; the reference keeps its coding interval in
+JAX runs with 32-bit integer types unless x64 mode is on, and the framework
+keeps it off; the reference keeps its coding interval in
 two ``u64`` registers (reference src/range_coder.rs:7-12).  This module gives
 the framework an exact, fully vectorizable u64: every function operates
 elementwise over arbitrarily-shaped uint32 arrays, works identically under
@@ -16,7 +17,7 @@ Only the operations the coder needs exist:
   (src/range_coder.rs:83-89) collapse into closed-form byte counts via
   count-leading-zeros (see ops/transition.py);
 * 64x32 multiplies (low-64 and full 96-bit) built from 16-bit partial
-  products — TPU u32 multiply is mod 2^32, so wide products are assembled
+  products — a u32 multiply is mod 2^32, so wide products are assembled
   the SWAR way;
 * exact u64/u32 divmod (digit-recurrence; used by the arbitrary-total mode
   mirroring ``range/total`` at src/range_coder.rs:38-40) and a fast
@@ -236,7 +237,7 @@ def clz(a: U64) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# multiplies (16-bit partial products: TPU u32 multiply is mod 2^32)
+# multiplies (16-bit partial products: a u32 multiply is mod 2^32)
 # ---------------------------------------------------------------------------
 
 def mul32_wide(a: jax.Array, b: jax.Array) -> Tuple[jax.Array, jax.Array]:
@@ -312,7 +313,7 @@ def divmod_u32(a: U64, d: jax.Array) -> Tuple[U64, jax.Array]:
 #: Safety margin subtracted from the float quotient estimate, and the number
 #: of fixed correction steps.  The f32 estimate built from clz-normalized
 #: 24-bit mantissas has absolute error well below 1 for quotients < 2^24;
-#: the margin guards against non-correctly-rounded f32 division on TPU.
+#: the margin guards against f32 division that is not correctly rounded.
 _DIV_EST_MARGIN = 2
 _DIV_FIX_STEPS = 5
 
@@ -330,7 +331,7 @@ def div_small_q(x: U64, y: U64) -> jax.Array:
     sx = clz(x)
     sy = clz(y)
     # top 24 bits of each operand as exact f32 mantissas (cast through i32:
-    # values < 2^24, and Mosaic has no u32<->f32 casts)
+    # values < 2^24, exact in an i32 -> f32 cast)
     mx = shr(shl(x, sx), 40).lo.astype(jnp.int32).astype(jnp.float32)
     my = shr(shl(y, sy), 40).lo.astype(jnp.int32).astype(jnp.float32)
     # x ~= mx * 2^(40 - sx), y ~= my * 2^(40 - sy)  (my truncated => q overestimates

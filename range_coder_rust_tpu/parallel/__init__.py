@@ -1,4 +1,4 @@
-"""Multi-chip / multi-host scaling: device meshes, sharded codecs, ordered
+"""Multi-card / multi-host scaling: device meshes, sharded codecs, ordered
 gather.  The reference has no parallelism at all (SURVEY.md §2: single
 thread, in-process VecDeque transport); this package is the framework's
 SPMD answer — blocks sharded over a ``jax.sharding.Mesh``, tables

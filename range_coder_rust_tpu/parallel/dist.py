@@ -9,7 +9,8 @@ sharding) and the host gather of per-block lengths/payloads for container
 assembly, the XLA-native analogue of the reference's in-process byte
 appends (src/encoder.rs:35; SURVEY.md §2 'communication backend').
 
-Works identically on one real TPU chip, a v5p slice, or N virtual CPU
+Works identically on one GPU, the cards of one host (all joined by NVLink,
+so a 1-D mesh over the block axis is the whole layout), or N virtual CPU
 devices (``--xla_force_host_platform_device_count``) — the mesh is the only
 degree of freedom.
 """
@@ -80,64 +81,64 @@ def make_sharded_codec(
 
 def make_sharded_rans16(
     mesh: Mesh, *, block_len: int, a_count: int,
-    per_group_tables: bool = False
+    group_lanes: Optional[int] = None, per_group_tables: bool = False
 ) -> Tuple[Callable, Callable]:
     """Mesh-sharded rans16 kernels: groups are the data-parallel axis.
 
     Groups are fully independent coder units (exactly like planar blocks),
     so the partitioning is communication-free; the Pallas kernels run
-    per-shard under ``shard_map`` (XLA's GSPMD cannot split a pallas_call
-    by itself).  Outputs are bit-identical to the single-device kernels —
+    per-shard under ``shard_map`` (XLA cannot split a pallas_call by
+    itself).  Outputs are bit-identical to the single-device kernels —
     container assembly downstream is unchanged, which is what makes the
     sharded container byte-identical (tests/test_parallel.py).
 
-    With G = rans.GROUP_LANES (2048 default; kernels are width-generic,
-    the width is derived from the input shapes):
+    With G = ``group_lanes`` (default rans.GROUP_LANES):
 
-    encode(rows (NG*G, L) any-int, cum_vreg (8,128) u32,
-           enc_aux (16,128) u32 barrett_rows)
-      -> (pre (NG,2G/128,128) u32, exp (NG,NT,rows_e,128) u32,
-          sizes (NG,NT))
-    decode(padded (NG,NT,rpad,128) u32, starts (NG,NT) i32,
-           pre (NG,2G/128,128) u32, cum_vreg) -> (NG, G, L) i32
+    encode(rows (NG*G, L) any-int, words) -> (buf (NG, L*G) u16,
+           counts (NG, L) i32, hi (NG, G) u32, lo (NG, G) u32)
+    decode(stream (n_dev, S) u16, offsets (NG,) i32, hi, lo, cum)
+      -> (NG, L, G) symbols
 
-    ``NG`` must be a multiple of the mesh size.
+    ``words`` (kernels.rans_encode.symbol_words) and ``cum``
+    (rans_codec.decode_tables) are the kernels' tables: one row,
+    replicated, or one row per group, sharded with the groups.  Decode's
+    ``stream`` row ``d`` holds the region sections of device ``d``'s
+    groups and ``offsets`` are row-local (rans_codec._stage_stream with
+    ``n_rows = n_dev``).  ``NG`` must be a multiple of the mesh size.
     """
-    import jax.numpy as jnp
+    from .. import rans, rans_codec
+    from ..kernels.backend import interpret_kernels
+    from ..kernels.rans_decode import rans_decode
 
-    from ..kernels.rans_decode import rans_decode_tiled
-    from ..kernels.rans_encode import rans_encode_tiled
-    from ..kernels.vreg import symbols_to_step_major
-
-    P = jax.sharding.PartitionSpec
-    interp = jax.default_backend() != "tpu"
+    g = group_lanes or rans.GROUP_LANES
+    interp = interpret_kernels(mesh.devices.flat[0].platform)
     # per-group (adaptive) tables ride the group axis with their groups;
     # a shared table is replicated
     t_spec = P(AXIS) if per_group_tables else P()
+    out_dtype = rans_codec._narrow_dtype(a_count)
 
-    def enc_local(rows, cum_vreg, enc_aux):
-        sym = symbols_to_step_major(rows.astype(jnp.int32))
-        return rans_encode_tiled(
-            sym, cum_vreg, enc_aux, block_len=block_len, a_count=a_count,
-            interpret=interp)
+    def enc_local(rows, words):
+        return rans_codec._encode_device(rows, words, group_lanes=g,
+                                         interpret=interp)
 
     # check_vma=False: pallas_call out_shapes carry no varying-mesh-axis
     # metadata, and the kernels touch no collectives anyway
     enc = jax.jit(jax.shard_map(
         enc_local, mesh=mesh,
-        in_specs=(P(AXIS), t_spec, t_spec),
-        out_specs=(P(AXIS), P(AXIS), P(AXIS)),
+        in_specs=(P(AXIS), t_spec),
+        out_specs=(P(AXIS),) * 4,
         check_vma=False,
     ))
 
-    def dec_local(padded, starts, pre, cum_vreg):
-        return rans_decode_tiled(
-            padded, starts, pre, cum_vreg, block_len=block_len,
-            a_count=a_count, interpret=interp)
+    def dec_local(stream, offsets, hi, lo, cum):
+        return rans_decode(
+            stream.reshape(-1), offsets, hi, lo, cum,
+            n_steps=block_len, a_count=a_count, out_dtype=out_dtype,
+            interpret=interp)
 
     dec = jax.jit(jax.shard_map(
         dec_local, mesh=mesh,
-        in_specs=(P(AXIS), P(AXIS), P(AXIS), t_spec),
+        in_specs=(P(AXIS),) * 4 + (t_spec,),
         out_specs=P(AXIS),
         check_vma=False,
     ))

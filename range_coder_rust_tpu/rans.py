@@ -1,23 +1,23 @@
-"""Interleaved word-renormalized rANS — the TPU-native fast profile ("rans16").
+"""Interleaved word-renormalized rANS — the fast device profile ("rans16").
 
 Why this exists.  The reference coder (a carryless range coder,
 /root/reference/src/range_coder.rs) is inherently encoder-emits-the-past /
 decoder-consumes-the-future: the decoder's 8-byte window makes its byte
 consumption at step ``t`` lag the encoder's emission by exactly 8 bytes, so
 a lane-interleaved shared stream (kernels/interleave.py) can only be built
-by a byte-granular permutation after encoding — a scatter that TPUs cannot
-do fast (measured 0.006 GB/s for the XLA formulation).  rANS flips the
+by a byte-granular permutation after encoding — a data-dependent byte
+scatter over the whole stream.  rANS flips the
 asymmetry: the encoder runs *backward* over the symbols, which makes the
 halfwords it emits at step ``t`` exactly the halfwords the decoder refills
 at step ``t``.  The interleaved stream can therefore be written directly by
-the encoder and read directly by the decoder, both within small uniformly-
-advancing windows — the access pattern TPU vector units are good at.
+the encoder and read directly by the decoder, both at a uniformly-
+advancing cursor plus each lane's rank among the lanes that move a halfword.
 
 This profile intentionally does NOT reproduce the reference's byte streams
 (the planar profile, blocks.py, remains the byte-exact conformance path).
 It reproduces the reference's *capabilities* — model-driven lossless coding
 with the same pow2-normalized tables and the same compressed-size ballpark —
-at TPU speed.  Round-trip exactness is property-tested; compressed size is
+at device speed.  Round-trip exactness is property-tested; compressed size is
 benchmarked against the reference-semantics scalar coder.
 
 ## The coder (fixed k = 16)
@@ -31,8 +31,8 @@ Encode one symbol ``s`` (iterating t = L-1 .. 0):
     if x >= c[s] << 32:          # one u32 compare: x.hi >= c[s]
         emit halfword x & 0xFFFF  # u16, little-endian in the stream
         x >>= 16                  # now x < 2^32 <= c << 32
-    q, r = divmod(x, c[s])        # q < 2^32 (exact; two 16-bit-quotient
-                                  #  f32 estimate+fixup stages on device)
+    q, r = divmod(x, c[s])        # q < 2^32 (exact; two 32-bit integer
+                                  #  divisions on device)
     x = (q << 16) | (cum[s] + r)  # cum + r < 2^16; x back in I
 
 Decode one symbol (iterating t = 0 .. L-1):
@@ -77,15 +77,24 @@ from typing import Tuple
 
 import numpy as np
 
-#: lanes per group — GROUP_LANES/128 (8, 128) vregs of coder state per
-#: step.  The kernels' per-step chain is LATENCY-bound (measured ~730
-#: dependent cycles per decode step), so wider groups amortize that
-#: latency over more symbols nearly for free; the cost is container state
-#: overhead (6 B/lane preamble) and VMEM.  2048 keeps the size win vs the
-#: scalar reference (+6 KB per 67M-symbol group = +0.0007 bits/sym) while
-#: roughly halving the latency share.  Kernels and container parse are
-#: width-generic: streams written at other widths still decode.
+#: lanes per group, the default container geometry.  Each step of a
+#: group is one serial dependency chain, so wider groups spread its
+#: latency over more symbols; the cost is container state overhead
+#: (6 B/lane preamble: +6 KB per 67M-symbol group = +0.0007 bits/sym).
+#: Kernels and container parse are width-generic: streams written at
+#: other widths still decode.
 GROUP_LANES = 2048
+
+#: halfwords per container tile: a tile is ``TILE_HALFWORDS // G`` steps,
+#: so its region (at most one halfword per lane-step) never exceeds this.
+#: A format constant — the per-tile size table and the sync points of
+#: every container are counted in these tiles.
+TILE_HALFWORDS = 65536
+
+
+def tile_steps_for(group_lanes: int) -> int:
+    """Steps per container tile for a group width."""
+    return max(1, TILE_HALFWORDS // group_lanes)
 
 #: table precision — the rans16 profile is specialized to 2^16 totals
 K = 16

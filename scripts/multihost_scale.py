@@ -1,11 +1,11 @@
-"""2-process multihost rans16 scaling record with DCN-gather byte
-accounting (VERDICT r4 item 4: multihost correctness was pinned only at
-toy scale; no measured gather-byte ratio existed).
+"""2-process multihost rans16 scaling record with gather-byte accounting
+(multihost correctness is pinned at toy scale by the tests; this
+measures the gather's byte ratio at a larger group count).
 
-Parent mode (default): spawns 2 real processes (the DCN stand-in used by
+Parent mode (default): spawns 2 real processes (the multi-process path of
 tests/test_multihost.py — jax.distributed over localhost, 2 virtual CPU
-devices each), waits, merges their JSON into SCALING_r05.json under
-"multihost_2proc".
+devices each), waits, and prints their merged JSON (also written to
+``RC_SCALE_OUT`` under "multihost_2proc" when that is set).
 
 Worker mode (argv: worker PORT NPROC PID OUTDIR): encodes its contiguous
 group range of a shared corpus through the standard local device pipeline
@@ -14,9 +14,9 @@ program hardware runs), ordered-gathers the trimmed payload bytes, round
 trips its share, and records:
 
   * local encode/decode wall seconds (CPU interpret — NOT a throughput
-    claim; the throughput numbers live in BENCH_* from the real chip),
+    claim; device throughput comes from bench.py on a GPU),
   * gather wall seconds,
-  * gathered DCN bytes / compressed payload bytes (the round-3 design
+  * gathered bytes / compressed payload bytes (the round-3 design
     all-gathered capacity-padded rows at ~2x; trimmed gathering should
     sit at ~nproc * max-process-total / total ~ 1.0 for balanced shards).
 
@@ -111,14 +111,13 @@ def worker(port: str, nproc: int, pid: int, outdir: str) -> None:
             "encode_wall_s_proc0": round(enc_s, 2),
             "gather_wall_s": round(gather_s, 2),
             "decode_wall_s_proc0": round(dec_s, 2),
-            "dcn_gathered_bytes": gathered,
+            "gathered_bytes": gathered,
             "compressed_bytes": compressed,
             "gather_byte_ratio": round(gathered / compressed, 4),
             "container_byte_identical_to_single_process": blob == solo,
-            "note": ("CPU-interpret walls (same kernel program as "
-                     "hardware, not a throughput claim); gather ratio is "
-                     "the DCN accounting: trimmed-byte ordered gather "
-                     "moves ~1.0x the compressed bytes"),
+            "note": ("CPU-interpret walls (same kernel program the GPU "
+                     "compiles, not a throughput claim); the trimmed-byte "
+                     "ordered gather moves ~1.0x the compressed bytes"),
         }
         with open(os.path.join(outdir, "mh_record.json"), "w") as f:
             json.dump(rec, f, indent=1)
@@ -151,15 +150,15 @@ def main() -> None:
         sys.exit("multihost scale run failed")
     with open(os.path.join(outdir, "mh_record.json")) as f:
         rec = json.load(f)
-    path = os.path.join(REPO, os.environ.get("RC_SCALE_OUT",
-                                             "SCALING_r05.json"))
-    merged = {}
-    if os.path.exists(path):
-        with open(path) as f:
-            merged = json.load(f)
-    merged["multihost_2proc"] = rec
-    with open(path, "w") as f:
-        json.dump(merged, f, indent=1)
+    path = os.environ.get("RC_SCALE_OUT")
+    if path:
+        merged = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                merged = json.load(f)
+        merged["multihost_2proc"] = rec
+        with open(path, "w") as f:
+            json.dump(merged, f, indent=1)
     print(json.dumps(rec))
 
 

@@ -1,4 +1,4 @@
-"""Many-slice random-access read benchmark (real TPU).
+"""Many-slice random-access read benchmark on a GPU.
 
     python scripts/slice_bench.py [MB] [N_SLICES]
 
@@ -11,8 +11,7 @@ Each slice is verified against the source corpus.
 Reads land at uniformly random offsets, so successive slices hit different
 (sync-window, tile-span) geometries: the first few pay a one-time compile
 each (cached on disk thereafter); the steady state is the warm number.
-Within a call, the payload is parsed once and the table prep reused
-(advisor r4 — previously up to 3 parses of a multi-MB payload per read).
+Within a call, the payload is parsed once and the tables reused.
 """
 
 import json
@@ -21,7 +20,7 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+from bench import card_name_and_power_limit, make_corpus  # noqa: E402
 
 t0 = time.time()
 
@@ -34,34 +33,33 @@ def main():
     mb = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     n_slices = int(sys.argv[2]) if len(sys.argv) > 2 else 24
     slice_sym = int(os.environ.get("RC_SLICE_SYM", "1024"))
+    n = mb << 20
+    if not 0 < slice_sym < n:
+        sys.exit(f"RC_SLICE_SYM={slice_sym} must be in (0, {n})")
+    if n_slices < 1:
+        sys.exit("N_SLICES must be >= 1")
 
     import jax
-
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
     import numpy as np
 
     from range_coder_rust_tpu import api
+    from range_coder_rust_tpu.kernels.backend import require_gpu
+    from range_coder_rust_tpu.utils.compile_cache import use_compile_cache
 
-    dev = jax.devices()[0]
-    log(f"device: {dev}")
+    dev = require_gpu()
+    use_compile_cache()
+    card = card_name_and_power_limit()
+    log(f"device: {dev} ({card})")
 
-    n = mb << 20
-    rng = np.random.default_rng(0xC0)
-    ranks = np.arange(1, 257)
-    probs = 1.0 / ranks**1.2
-    probs /= probs.sum()
-    data = rng.choice(256, size=n, p=probs).astype(np.int32)
-
+    data = make_corpus(n)
     cfg = api.CodecConfig(profile="rans16", sync_tiles=16)
     t_enc = time.time()
-    blob = api.encode(data, config=cfg)
+    blob = api.encode(data, alphabet=256, config=cfg)
     t_enc = time.time() - t_enc
     log(f"container: {len(blob)/2**20:.1f} MB from {mb} MB "
-        f"(encode {t_enc:.1f}s incl. tunnel)")
+        f"(encode {t_enc:.1f}s)")
 
+    rng = np.random.default_rng(0xC0)
     starts = rng.integers(0, n - slice_sym, size=n_slices)
     walls = []
     for i, s in enumerate(starts):
@@ -71,21 +69,23 @@ def main():
         assert np.array_equal(out, data[s : s + slice_sym]), f"slice {i}"
         log(f"slice {i:3d} @ {int(s):>12,}: {walls[-1]*1e3:7.1f} ms")
 
-    warm = sorted(walls[4:])  # drop the compile-heavy head
+    # drop the compile-heavy head, keeping at least one slice
+    warm = sorted(walls[min(4, len(walls) - 1):])
     med = warm[len(warm) // 2]
-    rec = {
-        "metric": "random-access 1KB slice reads (rans16, sync_tiles=16)",
+    print(json.dumps({
+        "metric": "random-access slice reads (rans16, sync_tiles=16)",
         "corpus_mb": mb,
         "slice_symbols": slice_sym,
         "n_slices": n_slices,
-        "container_mb": round(len(blob) / 2**20, 1),
-        "cold_first_slice_s": round(walls[0], 3),
-        "warm_median_s": round(med, 3),
-        "warm_min_s": round(min(warm), 3),
-        "warm_slices_per_s": round(1.0 / med, 2),
-        "device": str(dev),
-    }
-    print(json.dumps(rec))
+        "container_mb": len(blob) / 2**20,
+        "cold_first_slice_s": walls[0],
+        "warm_median_s": med,
+        "warm_min_s": min(warm),
+        "warm_slices_per_s": 1.0 / med,
+        "card": card,
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
+    }))
 
 
 if __name__ == "__main__":

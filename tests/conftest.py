@@ -1,8 +1,9 @@
 """Test-dir conftest: make the package importable from a source checkout.
 
 Backend selection (CPU, 8 virtual devices) happens in the repo-root
-conftest.py, which re-execs pytest with a corrected environment before
-pytest's output capture starts.
+conftest.py.  Tests marked ``gpu`` skip unless JAX's platform is a GPU;
+the decision is made here, in a fixture, when each test runs — never at
+import time, so every pytest-xdist worker collects the same tests.
 """
 
 import os
@@ -34,3 +35,17 @@ def _drop_compiled_executables_between_modules():
 
     jax.clear_caches()
     gc.collect()
+
+
+@pytest.fixture(autouse=True)
+def _gpu_marker(request):
+    """Skip ``@pytest.mark.gpu`` tests where JAX finds no GPU."""
+    if request.node.get_closest_marker("gpu") is None:
+        return
+    import jax
+
+    platform = jax.devices()[0].platform
+    if platform != "gpu":
+        pytest.skip(f"needs a GPU, JAX's platform is {platform!r}; on the "
+                    "card run JAX_PLATFORMS=cuda python -m pytest -m gpu "
+                    "tests/")

@@ -6,7 +6,7 @@ histogram chunk divisor, group-width shadowing).
 Axes per case: group_lanes x lane length (incl. non-tile-multiples that
 force shrink, multi-tile lanes) x alphabet (non-pow2, leading/interior
 zero-frequency symbols, single-symbol data) x partial last group x
-per_group_tables x sync_tiles x chain-interleave (via the group count).
+per_group_tables x sync_tiles x group count.
 Every case round-trips through the REAL container and spot-checks a
 random decode_range slice.
 
@@ -21,8 +21,8 @@ import pytest
 
 from range_coder_rust_tpu import api, rans_codec
 from range_coder_rust_tpu import format as fmt
-from range_coder_rust_tpu.kernels.rans_encode import tile_steps_for
 from range_coder_rust_tpu.models.table import table_from_data_pow2
+from range_coder_rust_tpu.rans import tile_steps_for
 
 N_CASES = int(os.environ.get("RC_FUZZ_N", "200"))
 SHARDS = 8
@@ -32,7 +32,7 @@ def _draw_case(rng):
     g = int(rng.choice([128, 256, 512, 1024]))
     ts = tile_steps_for(g)
     # lane length: usually sub-tile (fast under interpret), sometimes a
-    # small tile multiple (multi-tile window staging + sync sections)
+    # small tile multiple (multi-tile size tables + sync sections)
     if rng.random() < 0.75 or ts > 128:
         L = int(rng.integers(1, min(ts, 112) + 1))
     else:

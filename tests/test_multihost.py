@@ -1,10 +1,10 @@
-"""Multi-host (multi-process) DCN path: 2 JAX processes x 2 virtual CPU
+"""Multi-host (multi-process) path: 2 JAX processes x 2 virtual CPU
 devices encode a shared corpus as one global mesh; process 0's container
 must be byte-identical to the single-process one, and must decode.
 
 This is the single-machine simulation of SURVEY.md §7 step 7 (multi-host
 via ``jax.distributed.initialize`` — SURVEY.md §4 "subprocess-spawned ...
-for multi-process DCN paths").
+for multi-process paths").
 """
 
 import os
@@ -101,7 +101,7 @@ def test_multihost_matches_single_process(multihost_container):
 
 
 def test_multihost_rans16_matches_single_process(multihost_container):
-    """The flagship rans16 profile over the DCN path: the 2-process
+    """The flagship rans16 profile over the multi-process path: the 2-process
     container (group axis sharded over processes, trimmed-byte ordered
     gather) must be byte-identical to the single-process product path
     and must decode (VERDICT r3 item 3)."""

@@ -68,104 +68,82 @@ def test_sharded_outputs_are_distributed():
     assert np.array_equal(np.asarray(dec), data)
 
 
-def test_sharded_rans16_matches_single_device():
-    """rans16 kernels under shard_map over the 8-device group axis must be
-    bit-identical to the single-device kernels (=> byte-identical
-    containers); decode must invert them (round-3 verdict item 6)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
+def _regions(buf, counts):
+    """Each group's valid region (the right-aligned tail of its buffer)."""
+    buf, totals = np.asarray(buf), np.asarray(counts).sum(axis=1)
+    return [buf[g, buf.shape[1] - int(n):] for g, n in enumerate(totals)]
 
+
+def _check_sharded_rans16(data, t_c, G, L, per_group):
+    """Sharded encode == single-device encode; groups land on distinct
+    devices; sharded decode inverts the container's payloads."""
     from range_coder_rust_tpu import rans_codec
-    from range_coder_rust_tpu.kernels.rans_encode import barrett_rows
-    from range_coder_rust_tpu.kernels.vreg import prep_cum_vreg
-    from range_coder_rust_tpu.models.table import table_from_data_pow2
-    from range_coder_rust_tpu.parallel import (
-        block_sharding, default_mesh, make_sharded_rans16, replicated)
+    from range_coder_rust_tpu.models.table import build_table_pow2
+    from range_coder_rust_tpu.parallel import make_sharded_rans16
 
     n_dev = 8
     mesh = default_mesh(jax.devices()[:n_dev])
-    from range_coder_rust_tpu import rans
-    G, L = rans.GROUP_LANES, 64
-    NG = n_dev  # one group per device
+    NG = data.shape[0] // G
+    from range_coder_rust_tpu.kernels.rans_encode import symbol_words
+
+    words = jnp.asarray(symbol_words(t_c) if per_group
+                        else symbol_words(t_c)[0])
+    cum = rans_codec.decode_tables(t_c)
+    tab_sh = block_sharding(mesh) if per_group else replicated(mesh)
+    sh = block_sharding(mesh)
+
+    enc, dec = make_sharded_rans16(
+        mesh, block_len=L, a_count=t_c.shape[-1], group_lanes=G,
+        per_group_tables=per_group)
+    buf, counts, hi, lo = enc(jax.device_put(jnp.asarray(data), sh),
+                              jax.device_put(words, tab_sh))
+    assert len({s.device for s in counts.addressable_shards}) == n_dev
+
+    buf1, counts1, hi1, lo1 = rans_codec._encode_device(
+        jnp.asarray(data), words, group_lanes=G, interpret=True)
+    np.testing.assert_array_equal(np.asarray(counts), np.asarray(counts1))
+    np.testing.assert_array_equal(np.asarray(hi), np.asarray(hi1))
+    np.testing.assert_array_equal(np.asarray(lo), np.asarray(lo1))
+    for a, b in zip(_regions(buf, counts), _regions(buf1, counts1)):
+        np.testing.assert_array_equal(a, b)
+
+    # container payloads via the unchanged assembly, then sharded decode
+    tables = ([build_table_pow2(c.astype(np.uint64), 16) for c in t_c]
+              if per_group else build_table_pow2(t_c.astype(np.uint64), 16))
+    payloads = rans_codec.encode_groups(data, tables, L, 0, G)
+    parsed = [rans_codec._parse_payload(p, L, G) for p in payloads]
+    stream, offsets = rans_codec._stage_stream(
+        [r for _, _, r in parsed], n_rows=n_dev)
+    hi_p, lo_p = rans_codec._states_from6([p6 for _, p6, _ in parsed], G)
+    out = dec(*(jax.device_put(jnp.asarray(x), sh)
+                for x in (stream, offsets, hi_p, lo_p)),
+              jax.device_put(cum, tab_sh))
+    np.testing.assert_array_equal(
+        np.asarray(out).transpose(0, 2, 1).reshape(NG * G, L), data)
+
+
+def test_sharded_rans16_matches_single_device():
+    """rans16 kernels under shard_map over the 8-device group axis must be
+    bit-identical to the single-device kernels (=> byte-identical
+    containers); decode must invert them."""
+    from range_coder_rust_tpu.models.table import table_from_data_pow2
+
+    G, L, NG = 256, 64, 8  # one group per device
     rng = np.random.default_rng(17)
     data = rng.integers(0, 200, size=(NG * G, L)).astype(np.int32)
     t = table_from_data_pow2(data, 256, 16)
-    cum_vreg = jnp.asarray(prep_cum_vreg(t.cum))
-
-    enc_aux = jnp.asarray(barrett_rows(t.c))
-    enc, dec = make_sharded_rans16(mesh, block_len=L, a_count=256)
-    rows_sh = jax.device_put(jnp.asarray(data), block_sharding(mesh))
-    cum_sh = jax.device_put(cum_vreg, replicated(mesh))
-    aux_sh = jax.device_put(enc_aux, replicated(mesh))
-    pre, exp, sizes = enc(rows_sh, cum_sh, aux_sh)
-
-    # bit-parity vs the single-device pipeline
-    pre1, exp1, sizes1 = rans_codec._encode_device(
-        jnp.asarray(data), cum_vreg, enc_aux, block_len=L, a_count=256,
-        interpret=True)
-    np.testing.assert_array_equal(np.asarray(sizes), np.asarray(sizes1))
-    np.testing.assert_array_equal(np.asarray(pre), np.asarray(pre1))
-    np.testing.assert_array_equal(np.asarray(exp), np.asarray(exp1))
-
-    # container byte-parity via the unchanged assembly, then sharded decode
-    payloads = rans_codec.encode_groups(data, t, L)
-    parsed = [rans_codec._parse_payload(p, L) for p in payloads]
-    sizes_np = np.stack([s for s, _, _ in parsed])
-    region = b"".join(bytes(r) for _, _, r in parsed)
-    flat_sz = sizes_np.reshape(-1)
-    H = np.concatenate([[0], np.cumsum(flat_sz)])[:-1]
-    a_row = (H >> 8).astype(np.int64)
-    b_row = (H + flat_sz + 255) >> 8
-    rpad = rans_codec._rpad_for(int((b_row - a_row).max(initial=1)))
-    R = -(-max(len(region) // 512, 1) // 8) * 8
-    ridx = np.minimum(a_row[:, None] + np.arange(rpad)[None, :],
-                      max(R - 1, 0)).astype(np.int32).reshape(-1)
-    buf = np.zeros(R * 512, np.uint8)
-    buf[: len(region)] = np.frombuffer(region, np.uint8)
-    padded = np.asarray(rans_codec._pad_stream(
-        jnp.asarray(buf.view("<u4").reshape(R, 128)), jnp.asarray(ridx),
-        ng=NG, nt=sizes_np.shape[1], rpad=rpad))
-    starts = (H & 255).astype(np.int32).reshape(NG, -1)
-    pre8 = np.zeros((NG, G, 8), np.uint8)
-    for g, (_, p6, _) in enumerate(parsed):
-        pre8[g, :, :6] = np.frombuffer(p6, np.uint8).reshape(G, 6)
-    x = pre8.reshape(NG, G * 8).view("<u8")
-    words = np.empty((NG, 2 * G), np.uint32)
-    words[:, 0::2] = (x & 0xFFFFFFFF).astype(np.uint32)
-    words[:, 1::2] = (x >> 32).astype(np.uint32)
-
-    sh = block_sharding(mesh)
-    out = dec(
-        jax.device_put(jnp.asarray(padded), sh),
-        jax.device_put(jnp.asarray(starts), sh),
-        jax.device_put(jnp.asarray(words.reshape(NG, 2 * G // 128, 128)), sh),
-        cum_sh,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out).reshape(NG * G, L), data)
+    _check_sharded_rans16(data, t.c, G, L, per_group=False)
 
 
 def test_sharded_rans16_per_group_tables():
     """Adaptive rans16 sharded: each device carries its own group AND its
     own table (tables ride the group axis); outputs bit-match the
     single-device per-group pipeline."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
+    from range_coder_rust_tpu import format as fmt
     from range_coder_rust_tpu import rans_codec
-    from range_coder_rust_tpu.kernels.rans_encode import barrett_rows
-    from range_coder_rust_tpu.kernels.vreg import prep_cum_vreg
     from range_coder_rust_tpu.models.table import table_from_data_pow2
-    from range_coder_rust_tpu.parallel import (
-        block_sharding, default_mesh, make_sharded_rans16)
 
-    n_dev = 8
-    mesh = default_mesh(jax.devices()[:n_dev])
-    from range_coder_rust_tpu import rans
-    G, L = rans.GROUP_LANES, 64
-    NG = n_dev
+    G, L, NG = 256, 64, 8
     rng = np.random.default_rng(23)
     # a different distribution per group
     data = np.concatenate([
@@ -174,26 +152,11 @@ def test_sharded_rans16_per_group_tables():
     ]).astype(np.int32).reshape(NG * G, L)
     tables = [table_from_data_pow2(data[g * G:(g + 1) * G], 256, 16)
               for g in range(NG)]
-    cum_vregs = jnp.asarray(np.stack([prep_cum_vreg(t.cum) for t in tables]))
-    eauxs = jnp.asarray(np.stack([barrett_rows(t.c) for t in tables]))
-
-    enc, _ = make_sharded_rans16(
-        mesh, block_len=L, a_count=256, per_group_tables=True)
-    sh = block_sharding(mesh)
-    pre, exp, sizes = enc(
-        jax.device_put(jnp.asarray(data), sh),
-        jax.device_put(cum_vregs, sh),
-        jax.device_put(eauxs, sh),
-    )
-    pre1, exp1, sizes1 = rans_codec._encode_device(
-        jnp.asarray(data), cum_vregs, eauxs, block_len=L, a_count=256,
-        interpret=True)
-    np.testing.assert_array_equal(np.asarray(sizes), np.asarray(sizes1))
-    np.testing.assert_array_equal(np.asarray(exp), np.asarray(exp1))
+    _check_sharded_rans16(data, np.stack([t.c for t in tables]), G, L,
+                          per_group=True)
 
     # full adaptive container path round-trips the same data
     blob = rans_codec.encode(
         data.reshape(-1), alphabet=256, block_len=L, per_group_tables=True)
-    from range_coder_rust_tpu import format as fmt
     np.testing.assert_array_equal(
         rans_codec.decode(fmt.unpack(blob)), data.reshape(-1))

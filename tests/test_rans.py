@@ -78,16 +78,14 @@ def test_stream_layout_split_inverse():
 
 
 def test_batch_table_builders_match_scalar():
-    """barrett_rows_batch / prep_cum_vreg_batch must equal the scalar
-    builders for every count pattern (incl. the c > 2^15 wide band and
-    c == 2^16 single-symbol tables)."""
+    """The kernels' batched table builders (symbol_words, cum_rows) must
+    equal their one-table results row by row and unpack to the exact
+    counts — including the c > 2^15 band and c == 2^16 single-symbol
+    tables (packed as c - 1 in 16 bits)."""
     import numpy as np
 
-    from range_coder_rust_tpu.kernels.rans_encode import (
-        barrett_rows, barrett_rows_batch)
-    from range_coder_rust_tpu.kernels.vreg import (
-        prep_cum_vreg, prep_cum_vreg_batch)
-
+    from range_coder_rust_tpu.kernels.rans_decode import cum_rows
+    from range_coder_rust_tpu.kernels.rans_encode import symbol_words
     from range_coder_rust_tpu.models.table import build_table_pow2
 
     rng = np.random.default_rng(3)
@@ -99,9 +97,14 @@ def test_batch_table_builders_match_scalar():
     tables.append(np.array([40000, 25536], np.uint32))       # c > 2^15
     for c in tables:
         a = c.shape[0]
-        got = barrett_rows_batch(c[None, :])[0]
-        want = barrett_rows(c)
-        np.testing.assert_array_equal(got, want)
         cum = np.concatenate([[0], np.cumsum(c)]).astype(np.uint32)
+        w = symbol_words(c)[0]
+        np.testing.assert_array_equal(w[:a] & 0xFFFF, cum[:a])
+        np.testing.assert_array_equal((w[:a] >> 16) + 1, c)
+        both = np.stack([c, c[::-1]])
+        np.testing.assert_array_equal(symbol_words(both)[0], w)
         np.testing.assert_array_equal(
-            prep_cum_vreg_batch(cum[None, :])[0], prep_cum_vreg(cum))
+            symbol_words(both)[1], symbol_words(c[::-1])[0])
+        rows = cum_rows(both)
+        np.testing.assert_array_equal(rows[0, : a + 1], cum)
+        assert np.all(rows[:, a:] == 1 << 16)

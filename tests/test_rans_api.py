@@ -246,7 +246,7 @@ def test_rans16_adaptive_odd_block_len_narrow_groups():
 
 
 def test_rans16_alphabet_1024_falls_back():
-    """Alphabet exactly 1024 exceeds the cum vreg's A+1 <= 1024 capacity
+    """Alphabet exactly 1024 exceeds the kernel tables' A+1 <= 1024 capacity
     and must fall back to planar like any wider alphabet (advisor r4:
     the a > 1024 check was off by one)."""
     rng = np.random.default_rng(19)
